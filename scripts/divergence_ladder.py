@@ -1,6 +1,6 @@
 """Divergence-ladder validation of the capped-default align path.
 
-VERDICT round-3 #6: the host engine's default caps (probe score 100,
+The host engine's default caps (probe score 100,
 refine cap 800, junk 0.55) were tuned on LPA; this sweep measures how
 far the capped default drifts from the exact optimum as divergence
 rises toward the 70% ANI floor (map_parameters.hpp:126).

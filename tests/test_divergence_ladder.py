@@ -1,4 +1,4 @@
-"""Divergence-ladder cap validation (VERDICT round-3 #6).
+"""Divergence-ladder cap validation.
 
 The capped-default align path (probe 100 / refine 800 / junk 0.55) is
 a documented approximation; this pins how far it may drift from the

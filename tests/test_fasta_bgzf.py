@@ -12,7 +12,23 @@ import pytest
 from wfmash_tpu.io.fasta import (FastaReader, _BgzfData, _read_gzi,
                                  _scan_bgzf_blocks)
 
-LPA = "/root/reference/data/LPA.subset.fa.gz"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def seeded_bgzf(tmp_path_factory):
+    """A seeded 1 Mb single-record BGZF FASTA (+ .fai, + .gzi), written by
+    scripts/scale_demo.write_fasta_bgzf (~17 BGZF blocks)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from scale_demo import write_fasta_bgzf
+
+    rng = np.random.default_rng(2024)
+    path = str(tmp_path_factory.mktemp("bgzf") / "seeded.fa.gz")
+    write_fasta_bgzf(path, "chrS", rng.integers(0, 4, 1_000_000)
+                     .astype(np.uint8))
+    return path
 
 
 def bgzf_compress(data: bytes, block: int = 60000) -> bytes:
@@ -55,13 +71,13 @@ def random_seq(rng, n):
     return bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), n))
 
 
-def test_lpa_bgzf_matches_whole_decompress():
-    r = FastaReader(LPA)
+def test_lpa_bgzf_matches_whole_decompress(seeded_bgzf):
+    r = FastaReader(seeded_bgzf)
     r._range(0, 1)          # force backend init
     assert r._kind == "bgzf"
     import gzip
 
-    whole = gzip.decompress(open(LPA, "rb").read())
+    whole = gzip.decompress(open(seeded_bgzf, "rb").read())
     # reconstruct a reader that uses the gzip-whole path for comparison
     rng = np.random.default_rng(0)
     for name in r.names[:3]:
@@ -85,9 +101,9 @@ def test_lpa_bgzf_matches_whole_decompress():
     assert r.fetch(name) == bytes(seqs[name])
 
 
-def test_gzi_and_scan_agree():
-    gzi = _read_gzi(LPA + ".gzi")
-    scan = _scan_bgzf_blocks(LPA)
+def test_gzi_and_scan_agree(seeded_bgzf):
+    gzi = _read_gzi(seeded_bgzf + ".gzi")
+    scan = _scan_bgzf_blocks(seeded_bgzf)
     assert gzi is not None and scan is not None
     # the scan includes every block; .gzi may omit nothing but the EOF
     assert scan[:len(gzi)] == gzi

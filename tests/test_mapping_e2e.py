@@ -135,7 +135,7 @@ def test_chain_tags_survive_group_filter(tmp_path):
     max-mapping-length re-split turns into >= 2 rows: after the default
     plane-sweep group filter the rows must still carry their real
     ch:Z:id.pos.len tags (shared id, positions 1..len), not degraded
-    identity chains (reference: mappingOutput.hpp:25-169; VERDICT round-1
+    identity chains (reference: mappingOutput.hpp:25-169;
     weak #4)."""
     rng = np.random.default_rng(7)
     target = random_dna(rng, 130_000)

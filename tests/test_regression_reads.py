@@ -76,7 +76,7 @@ def _align_reads(map_out: str, sam=False, **overrides):
 
 
 def test_reads_255bps_golden_field_level():
-    """Field-level golden comparison (VERDICT round-1 #5 / round-2 #7).
+    """Field-level golden comparison.
 
     Flag recovery was attempted (round 3): the generating invocation is
     unrecorded (the old `wfmash-short-reads-255bps-to-PAF` ctest exists
@@ -163,7 +163,7 @@ def test_reads_255bps_golden_field_level():
             assert mf[0] == f[0] and mf[5] == f[5]          # names
             assert mf[1] == f[1] and mf[6] == f[6]          # lengths
             assert mf[4] == strand                          # strand
-            # content check (VERDICT round-3 #8, replacing the old
+            # content check (replacing the old
             # >=65% span-overlap excuse): >=95% of the golden row's
             # aligned base pairs must be reproduced at IDENTICAL
             # (query,ref) coordinates (measured 0.956-0.996 per row;
@@ -242,7 +242,7 @@ def _aligned_pairs(ops, q0, r0):
     reason="reference data not available")
 def test_reads_500bps_sam_golden():
     """The 500bp-read SAM golden (reads.500bps vs 'sample'), field-level
-    (VERDICT round-3 #5).
+    
 
     The golden rows carry the generating binary's ends-free
     force-extension signature (leading/trailing pure-indel runs like

@@ -1,4 +1,4 @@
-"""Anchored segmented alignment (the TPU-native wflambda) tests.
+"""Anchored segmented alignment (the device form of wflambda) tests.
 
 Validity bar: every stitched CIGAR must replay exactly. Quality bar:
 on realistic mutated blocks the stitched score must be optimal or
@@ -19,8 +19,7 @@ PATCH = Penalties(5, 8, 2, 24, 1)
 
 
 def make_engine(**kw):
-    return S.SegmentedEngine(PATCH, HostWfaEngine(PATCH), interpret=True,
-                             **kw)
+    return S.SegmentedEngine(PATCH, HostWfaEngine(PATCH), **kw)
 
 
 def test_anchor_chain_monotone():
@@ -280,7 +279,7 @@ def test_host_small_routing_bit_identical(monkeypatch):
     """WFMASH_TPU_SEG_HOST_SMALL=1 (native batch for ends-free patches,
     escalations, inversion tries) must produce byte-identical CIGARs and
     identical inversion records vs =0 (everything through the device
-    solver) — the routing is a latency policy, not a semantics change."""
+    solver) — the routing is a placement choice, not a semantics change."""
     from wfmash_tpu.align.wfa_np import EndsFree
     from wfmash_tpu.native import get_wfa_lib
 

@@ -85,7 +85,7 @@ def test_big_skew_routes_to_host():
     t = random_dna(rng, 9000)
     ins = random_dna(rng, 3000)
     q = t[:4000] + ins + t[4000:]
-    eng = JaxWfaEngine(PATCH, backend="xla")
+    eng = JaxWfaEngine(PATCH)
     ops = eng.align_batch([(q, t, None)])[0]
     assert C.validate(ops, q, t, 0, 0)
     assert max((n for n, op in ops if op == "I"), default=0) >= 2900

@@ -1,15 +1,15 @@
-"""Full-history segment kernel (wfa_pallas_seg) vs the wfa_np spec.
+"""Full-history segment kernel (wfa_seg) vs the wfa_np spec.
 
 The device backtrace must produce BIT-IDENTICAL CIGARs to the host
 reference (same recurrences, same tie-breaks): the kernel replaces the
 host leaf solver inside the exact engine, so byte equality — not just
-score equality — is the bar. Runs in interpret mode on CPU."""
+score equality — is the bar. The CPU runs the plain-JAX solve."""
 
 import numpy as np
 import pytest
 
 from wfmash_tpu.align.wfa_np import Penalties, wfa_align
-from wfmash_tpu.align.wfa_pallas_seg import SegmentSolver
+from wfmash_tpu.align.wfa_seg import SegmentSolver
 
 from test_wfa import make_pair
 from util import random_dna
@@ -19,7 +19,7 @@ WFLIGN = Penalties(2, 3, 1, 3, 1)
 
 
 def _check(jobs, p, solver=None):
-    solver = solver or SegmentSolver(p, interpret=True)
+    solver = solver or SegmentSolver(p)
     got = solver.solve(jobs)
     for (q, t), ops in zip(jobs, got):
         s_ref, ops_ref = wfa_align(q, t, p)
@@ -62,7 +62,7 @@ def test_seg_edge_cases():
 
 def test_seg_rejects_out_of_envelope():
     rng = np.random.default_rng(6)
-    solver = SegmentSolver(PATCH, interpret=True)
+    solver = SegmentSolver(PATCH)
     long = random_dna(rng, 600)       # > lseg-1
     got = solver.solve([(long, long)])
     assert got == [None]
@@ -85,7 +85,7 @@ def test_seg_band_centering_covers_large_skew():
 
 
 def solver_solve_one(q, t):
-    solver = SegmentSolver(PATCH, interpret=True)
+    solver = SegmentSolver(PATCH)
     return solver.solve([(q, t)])[0]
 
 
@@ -93,7 +93,7 @@ def test_seg_score_cap_flags_failure():
     rng = np.random.default_rng(7)
     q = random_dna(rng, 400)
     t = random_dna(rng, 400)          # unrelated: score >> smax
-    solver = SegmentSolver(PATCH, interpret=True, smax=64)
+    solver = SegmentSolver(PATCH, smax=64)
     assert solver.solve([(q, t)]) == [None]
 
 
@@ -134,7 +134,7 @@ def test_seg_fuzz_tie_breaks():
 def test_tiered_solver_bit_identical():
     """Tier-1 (PB=64,K=128,smax=128) results and tier-2 escalations must
     both be bit-identical to wfa_np."""
-    from wfmash_tpu.align.wfa_pallas_seg import TieredSegmentSolver
+    from wfmash_tpu.align.wfa_seg import TieredSegmentSolver
 
     rng = np.random.default_rng(19)
     jobs = []
@@ -145,7 +145,7 @@ def test_tiered_solver_bit_identical():
     # must solve
     s = random_dna(rng, 400)
     jobs.append((s, s[:150] + s[250:]))
-    sol = TieredSegmentSolver(PATCH, interpret=True)
+    sol = TieredSegmentSolver(PATCH)
     got = sol.solve(jobs)
     for (q, t), ops in zip(jobs, got):
         _, ref = wfa_align(q, t, PATCH)
@@ -172,7 +172,7 @@ def test_seg_ends_free_patches_bit_identical():
     from util import mutate
 
     rng = np.random.default_rng(10)
-    solver = SegmentSolver(PATCH, interpret=True)
+    solver = SegmentSolver(PATCH)
     jobs = []
     for i in range(6):
         n = int(rng.integers(60, 110))
@@ -193,8 +193,8 @@ def test_seg_ends_free_structural_gaps_bit_identical():
     from util import mutate
 
     rng = np.random.default_rng(11)
-    solver = SegmentSolver(PATCH, interpret=True, PB=16, K=512,
-                           smax=320, lseg=2048, groups=2)
+    solver = SegmentSolver(PATCH, K=512, smax=320, lseg=2048,
+                           max_call=32)
     jobs = []
     q0 = random_dna(rng, 700)
     t0 = random_dna(rng, 180) + mutate(rng, q0, 0.03) + random_dna(rng, 180)
@@ -210,8 +210,8 @@ def test_seg_deep_tier_midsize_bit_identical():
     from util import mutate
 
     rng = np.random.default_rng(12)
-    solver = SegmentSolver(PATCH, interpret=True, PB=16, K=512,
-                           smax=320, lseg=2048, groups=2)
+    solver = SegmentSolver(PATCH, K=512, smax=320, lseg=2048,
+                           max_call=32)
     t = random_dna(rng, 1200)
     q = mutate(rng, t, 0.04)
     _check([(q, t)], PATCH, solver)
@@ -220,11 +220,11 @@ def test_seg_deep_tier_midsize_bit_identical():
 def test_tiered_cascade_on_failure():
     """A job that exceeds tier-1's score cap must cascade to a deeper
     tier inside TieredSegmentSolver and come back exact."""
-    from wfmash_tpu.align.wfa_pallas_seg import TieredSegmentSolver
+    from wfmash_tpu.align.wfa_seg import TieredSegmentSolver
     from util import mutate
 
     rng = np.random.default_rng(13)
-    solver = TieredSegmentSolver(PATCH, interpret=True)
+    solver = TieredSegmentSolver(PATCH)
     t = random_dna(rng, 400)
     q = mutate(rng, t, 0.18)          # score ~> 128: beyond tier 1
     got = solver.solve([(q, t)])[0]
@@ -240,8 +240,8 @@ def test_seg_truncated_hull_certificates():
     from util import mutate
 
     rng = np.random.default_rng(14)
-    solver = SegmentSolver(PATCH, interpret=True, PB=16, K=512,
-                           smax=320, lseg=2048, groups=2)
+    solver = SegmentSolver(PATCH, K=512, smax=320, lseg=2048,
+                           max_call=32)
     # low-divergence big-erode head patch: hull 2300 wide, score < cert
     t0 = random_dna(rng, 1100)
     q0 = (mutate(rng, t0, 0.03) + random_dna(rng, 100))[:1200]
@@ -254,3 +254,107 @@ def test_seg_truncated_hull_certificates():
     q2 = mutate(rng, t2, 0.30)
     ef2 = EndsFree(target_begin=900, query_begin=900)
     assert solver.solve([(q2, t2, ef2)])[0] is None
+
+
+# (length range, substitution rate) shaped for each tier of
+# TieredSegmentSolver; every job is solved by that tier directly
+TIER_SHAPES = [((80, 400), 0.03), ((200, 480), 0.08), ((600, 1700), 0.03),
+               ((1000, 3800), 0.01), ((300, 900), 0.06)]
+
+
+@pytest.mark.parametrize("mode", ["end_to_end", "ends_free"])
+@pytest.mark.parametrize("tier", range(5))
+def test_lax_tier_bit_identical(tier, mode):
+    """The plain-JAX solve at each tier's real shape: every certified
+    CIGAR equals wfa_np's, and most jobs certify."""
+    from wfmash_tpu.align.wfa_np import EndsFree
+    from wfmash_tpu.align.wfa_seg import TieredSegmentSolver
+    from util import mutate
+
+    solver = TieredSegmentSolver(PATCH, kernel="lax").tiers[tier]
+    (lo, hi), sub = TIER_SHAPES[tier]
+    rng = np.random.default_rng(40 + tier)
+    jobs = []
+    for i in range(6):
+        t = random_dna(rng, int(rng.integers(lo, hi)))
+        if mode == "end_to_end":
+            jobs.append((mutate(rng, t, sub), t, None))
+        elif i % 2:
+            # free begin on both sequences (a head boundary patch)
+            q = mutate(rng, t, sub / 3)
+            jobs.append((q, t, EndsFree(target_begin=len(t),
+                                        query_begin=len(q))))
+        else:
+            # free end on the target (a tail patch)
+            q = mutate(rng, t[:len(t) - 40], sub / 3)
+            jobs.append((q, t, EndsFree(target_end=len(t))))
+    assert all(solver.accepts(len(q), len(t), ef) for q, t, ef in jobs)
+    st: list = []
+    got = solver.solve(jobs, status=st)
+    for (q, t, ef), ops, s in zip(jobs, got, st):
+        if s == "ok":
+            assert ops == wfa_align(q, t, PATCH, ef)[1]
+    assert sum(s == "ok" for s in st) >= 4, st
+
+
+def test_default_kernel_by_platform():
+    from wfmash_tpu.align import wfa_seg
+
+    assert wfa_seg.default_kernel() == "lax"   # the tests run on the CPU
+    assert SegmentSolver(PATCH).kernel == "lax"
+
+
+@pytest.mark.parametrize("nj,want", [(1, 8), (8, 8), (9, 16), (300, 512),
+                                     (5000, 1024)])
+def test_call_rows_pad_to_power_of_two(nj, want):
+    """A call's row count: the next power of two, at least 8, at most
+    max_call — one compiled shape per power of two."""
+    assert SegmentSolver(PATCH)._rows(nj) == want
+
+
+def test_cuda_call_lowers_with_tier_shapes(monkeypatch):
+    """The CUDA route's FFI call at a tier's shape: one u8 buffer row per
+    problem in; runs (B, maxr) i32, term (B, 16) i32 and the int16
+    history scratch (B, 5*smax*K) out; penalties and shape as
+    attributes. Lowered only — the kernel itself runs on the card."""
+    import jax
+    import jax.numpy as jnp
+
+    from wfmash_tpu.align import wfa_seg
+
+    monkeypatch.setattr(wfa_seg, "_register_cuda_target", lambda: None)
+    tier = wfa_seg.TieredSegmentSolver(PATCH, kernel="cuda").t2
+    B, L = 8, tier.lseg
+    buf = jax.ShapeDtypeStruct((B, L + 64), jnp.uint8)
+    fn = jax.jit(lambda b: wfa_seg._seg_cuda(
+        b, penalties=PATCH, K=tier.K, smax=tier.smax, maxr=tier.maxr))
+    text = fn.lower(buf).as_text()
+    assert "wfmash_seg_wfa" in text
+    assert f"tensor<{B}x{tier.maxr}xi32>" in text
+    assert f"tensor<{B}x16xi32>" in text
+    assert f"tensor<{B}x{5 * tier.smax * tier.K}xi16>" in text
+    for attr in ("K = %d" % tier.K, "smax = %d" % tier.smax, "o2 = 24"):
+        assert attr in text.replace(" : i32", "")
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_lax(gpu):
+    """On the card: the CUDA kernel and the plain-JAX solve agree on
+    results, statuses and banded CIGARs at every tier."""
+    from wfmash_tpu.align.wfa_seg import TieredSegmentSolver
+    from util import mutate
+
+    sol = {k: TieredSegmentSolver(PATCH, kernel=k) for k in ("cuda", "lax")}
+    rng = np.random.default_rng(77)
+    for ti, ((lo, hi), sub) in enumerate(TIER_SHAPES):
+        jobs = []
+        for _ in range(32):
+            t = random_dna(rng, int(rng.integers(lo, hi)))
+            jobs.append((mutate(rng, t, sub), t, None))
+        out = {}
+        for k, s in sol.items():
+            st: list = []
+            unc: list = []
+            got = s.tiers[ti].solve(jobs, status=st, uncertified=unc)
+            out[k] = (got, st, unc)
+        assert out["cuda"] == out["lax"]

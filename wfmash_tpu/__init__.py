@@ -1,16 +1,17 @@
-"""wfmash-tpu: a TPU-native whole-genome / pangenome aligner.
+"""wfmash-tpu: a JAX whole-genome / pangenome aligner.
 
 A from-scratch reimplementation of the capabilities of wfmash
 (https://github.com/waveygang/wfmash): MashMap3-style minmer sketching and
 Jaccard-based approximate mapping, chaining / plane-sweep / scaffold
-filtering, and WFA (wavefront) base-level alignment — redesigned for TPUs:
+filtering, and WFA (wavefront) base-level alignment — redesigned for an
+accelerator (an NVIDIA GPU) with a native C++ host runtime:
 
 * hashing / sketching / mapping statistics as batched JAX ops,
-* the WFA wavefront recursion as a Pallas kernel advancing many alignment
-  problems in lockstep per chip,
+* thousands of small WFA problems solved per device call (a CUDA kernel
+  on the GPU, its plain-JAX twin elsewhere), exact sweeps in XLA,
 * the mapping post-pipeline as vectorized array ops over mapping batches,
-* multi-chip scale-out via `jax.sharding` meshes (sharded target index,
-  data-parallel query fragment streams).
+* multi-device scale-out via `jax.sharding` meshes (sharded target index,
+  data-parallel segment batches).
 
 Layering (bottom-up), mirroring SURVEY.md §7:
 
@@ -19,9 +20,9 @@ Layering (bottom-up), mirroring SURVEY.md §7:
              bottom-s fragment sketches, windowed minmer extraction
   index/     the target minmer index (CSR posting table) + binary persistence
   map/       L1/L2 mapping stages, chaining, plane-sweep & scaffold filters
-  align/     WFA alignment kernels (JAX + Pallas), CIGAR post-processing,
+  align/     WFA alignment (JAX, CUDA, host spec), CIGAR post-processing,
              the wflign-equivalent patching pipeline
-  parallel/  device-mesh sharding helpers for multi-chip runs
+  parallel/  device-mesh sharding helpers for multi-device runs
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ src/common/wflign/src/wflign.cpp:108-483):
 
 The `aligner` argument abstracts the WFA engine: any callable implementing
 align(query, target, ends_free=None) -> ops. The host reference engine and
-the batched JAX/TPU engine are interchangeable here.
+the batched JAX engine are interchangeable here.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Reference: parse_args.hpp:142-145 (WFA_PNG_TSV_TIMING debug build):
 `-G` dumps the wflambda guide wavefront's (v, h, info) cells per
 alignment, `-u` renders them as a PNG, `-z` caps the plot size. This
 build's analogue of the guide wavefront is the anchor-chain
-segmentation plan (align/segmented.py — the TPU-native wflambda), so
+segmentation plan (align/segmented.py — the device form of wflambda), so
 the dumped cells are the plan's span boundaries with the same
 info-code idea:
 

@@ -1,15 +1,15 @@
-"""Batched wavefront alignment on TPU (JAX) — the performance engine.
+"""Batched wavefront alignment in JAX — the exact device engine.
 
 The reference's default aligner is WFA2-lib's biWFA ("MemoryUltralow",
 wflign.cpp:136-148): exact gap-affine-2p alignment in O(span) memory. This
-module provides the TPU-native equivalent with a design chosen for exact
+module provides a batched device equivalent with a design chosen for exact
 provability and lockstep batching:
 
 * **Sweep kernel** (:func:`_advance`): advances the five wavefronts
   (M, I1, I2, D1, D2) one score step for a whole batch, keeping only a
   ring of the last R = max(x, o1+e1, o2+e2)+1 score levels in memory.
-  The match-extension is computed by CHUNK-wide vectorized character
-  gathers repeated while any diagonal consumed a full chunk.
+  The match-extension compares gathered packed words, EXT_BYTES at a
+  time, repeated while any diagonal consumed a full window.
 
 * **Crossing payloads**: each wavefront entry carries the cell at which
   its path crossed a per-problem split boundary (row v == mid for
@@ -23,9 +23,9 @@ provability and lockstep batching:
 
 * **Recursion** (host): each problem is swept once to find its score and
   split anchor, split, and re-queued; problems small enough
-  (score x span below the history budget) are solved with the exact
-  host reference aligner (wfa_np) — device full-history base kernel is
-  the next optimization.
+  (score x span below the history budget) are leaves: on a GPU they go
+  to the segment solver (align/wfa_seg.py) in batches, and what it
+  cannot settle to the exact host aligner.
 
 Cross-checked against wfa_np and the O(nm) oracle in tests.
 """
@@ -46,7 +46,6 @@ from .wfa_vec import wfa_align
 NEG_I = -(1 << 28)
 NEG = jnp.int32(NEG_I)
 UNSET = jnp.int32(-1)
-CHUNK = 64
 
 # state indices
 M_, I1_, I2_, D1_, D2_ = 0, 1, 2, 3, 4
@@ -93,7 +92,7 @@ def ring_size(p: Penalties) -> int:
 def _advance(off, anc_v, anc_h, open_a, s, query_b, target_b, qlen, tlen,
              axis_is_query, mid, K: int, R: int, penalties: Penalties,
              kvec=None):
-    """One score step. query_b/target_b are block tables from
+    """One score step. query_b/target_b are padded word tables from
     :func:`make_blocks`. kvec optionally overrides the lane->diagonal
     map (default: lane i is diagonal i - K//2) — the diagonal-sharded
     multi-chip sweep passes each shard's global diagonal window."""
@@ -328,65 +327,27 @@ def _sweep(off, anc_v, anc_h, open_a, query_w, target_w, qlen, tlen,
 # the per-lane byte-alignment shift.
 NWORDS = 17
 EXT_BYTES = (NWORDS - 1) * 4
-BLOCK_WORDS = 64  # coarse fetch granularity (one-hot matmul over blocks)
-WIN = BLOCK_WORDS + NWORDS + 2  # overlapping window width in words
 
 
 def make_blocks(words):
-    """(B, Lw) uint32 -> (B, NB, WIN*4) bf16 of u8 channels.
+    """(B, Lw) uint32 -> (B, Lw + NWORDS + 1) uint32: the packed words,
+    zero-padded so an extension fetch that starts in range stays in
+    range."""
+    return jnp.pad(words, ((0, 0), (0, NWORDS + 1)))
 
-    The sequence words are laid out as NB overlapping windows of WIN words
-    (stride BLOCK_WORDS) and split into 4 byte channels, exactly
-    representable in bf16, so a one-hot (B,K,NB) @ (B,NB,WIN*4) matmul on
-    the MXU fetches any lane's 17-word neighborhood without a gather.
-    """
+
+def _fetch_aligned_words(words, byte_off, nw: int):
+    """nw consecutive u32 words starting at byte byte_off, gathered from
+    :func:`make_blocks` output and shifted so byte 0 is byte_off.
+    A lane with a negative offset reads zeros. Returns (B, K, nw)
+    uint32."""
     B, Lw = words.shape
-    nb = -(-Lw // BLOCK_WORDS)
-    pad = nb * BLOCK_WORDS + WIN - Lw
-    w = jnp.concatenate(
-        [words, jnp.zeros((B, pad), dtype=words.dtype)], axis=1
-    )
-    rows = [w[:, n * BLOCK_WORDS : n * BLOCK_WORDS + WIN] for n in range(nb)]
-    blk = jnp.stack(rows, axis=1)  # (B, NB, WIN) uint32
-    ch = jnp.stack(
-        [
-            (blk & 0xFF),
-            ((blk >> 8) & 0xFF),
-            ((blk >> 16) & 0xFF),
-            ((blk >> 24) & 0xFF),
-        ],
-        axis=-1,
-    )  # (B, NB, WIN, 4)
-    return ch.reshape(B, nb, WIN * 4).astype(jnp.bfloat16)
-
-
-def _fetch_aligned_words_mm(blocks, byte_off, nw: int):
-    """Gather-free fetch of nw+1 consecutive u32 words at byte_off//4,
-    shifted so byte 0 is byte_off. blocks from :func:`make_blocks`.
-    Returns (B, K, nw) uint32."""
-    B, NB, _ = blocks.shape
-    K = byte_off.shape[1]
     word0 = byte_off >> 2
-    blk_idx = word0 // BLOCK_WORDS
-    lo = word0 % BLOCK_WORDS
-    onehot = jax.nn.one_hot(blk_idx, NB, dtype=jnp.bfloat16)  # (B, K, NB)
-    win = jax.lax.dot_general(
-        onehot, blocks,
-        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )  # (B, K, WIN*4) exact u8 values
-    win = win.astype(jnp.uint32).reshape(B, K, WIN, 4)
-    win_u32 = (
-        win[..., 0] | (win[..., 1] << 8) | (win[..., 2] << 16)
-        | (win[..., 3] << 24)
-    )  # (B, K, WIN)
-    # select nw+1 consecutive words starting at `lo` via compare-select
-    jidx = lo[:, :, None] + jnp.arange(nw + 1, dtype=jnp.int32)[None, None, :]
-    sel = (
-        jnp.arange(WIN, dtype=jnp.int32)[None, None, None, :]
-        == jidx[:, :, :, None]
-    )
-    w = (jnp.where(sel, win_u32[:, :, None, :], jnp.uint32(0))).sum(axis=3)
+    idx = word0[:, :, None] + jnp.arange(nw + 1, dtype=jnp.int32)
+    flat = (jnp.arange(B, dtype=jnp.int32)[:, None, None] * Lw
+            + jnp.clip(idx, 0, Lw - 1))
+    w = words.reshape(-1)[flat]
+    w = jnp.where((word0[:, :, None] >= 0) & (idx < Lw), w, jnp.uint32(0))
     # byte-alignment shift
     r8 = ((byte_off & 3) << 3).astype(jnp.uint32)
     lo_part = w[:, :, :nw] >> r8[:, :, None]
@@ -399,14 +360,14 @@ def _fetch_aligned_words_mm(blocks, byte_off, nw: int):
 
 def _extend(m, kvec, query_blocks, target_blocks, qlen, tlen):
     """Advance M offsets while query[h] == target[h - k], comparing
-    EXT_BYTES at a time via packed u32 words fetched by one-hot matmul."""
+    EXT_BYTES at a time via gathered packed u32 words."""
 
     def ext_chunk(off):
         h = jnp.where(off > NEG, off, 0)
         v = h - kvec
         v = jnp.where(off > NEG, v, 0)
-        qw = _fetch_aligned_words_mm(query_blocks, h, NWORDS - 1)
-        tw = _fetch_aligned_words_mm(target_blocks, v, NWORDS - 1)
+        qw = _fetch_aligned_words(query_blocks, h, NWORDS - 1)
+        tw = _fetch_aligned_words(target_blocks, v, NWORDS - 1)
         x = qw ^ tw
         # per-word leading matched bytes (little-endian: byte 0 first)
         b0 = (x & 0xFF) == 0
@@ -469,33 +430,24 @@ class _Sub:
 
 
 class JaxWfaEngine:
-    """Batched exact WFA engine (device sweeps + host recursion).
-
-    backend: "xla" (the _sweep kernel above), "pallas" (the VMEM-resident
-    Pallas kernel in wfa_pallas.py, bit-identical), or "auto" (pallas on
-    TPU, xla elsewhere). WFMASH_TPU_WFA_BACKEND overrides."""
+    """Batched exact WFA engine (XLA sweeps on the device + host
+    recursion)."""
 
     def __init__(self, penalties: Penalties, batch_size: int = 128,
-                 host_len: int = 1500, max_span: int = 4096 + 1,
-                 backend: str | None = None):
-        import os
-
+                 host_len: int = 1500, max_span: int = 4096 + 1):
         self.p = penalties
         self.R = ring_size(penalties)
         self.batch_size = batch_size
         self.HOST_LEN = host_len
         self.HOST_CELLS = 1_000_000   # adaptive leaf: score/2 * span bound
         self.MAX_SPAN = max_span
-        backend = backend or os.environ.get("WFMASH_TPU_WFA_BACKEND", "auto")
-        if backend == "auto":
-            platform = jax.devices()[0].platform
-            backend = "xla" if platform == "cpu" else "pallas"
-        self.backend = backend
-        self._pallas = None
-        # shared full-history segment kernel (wfa_pallas_seg): recursion
-        # leaves that fit its envelope solve in device batches instead of
-        # one-by-one on the host (bit-identical results). Installed
-        # lazily, or injected by SegmentedEngine to share compiles.
+        # on a GPU, recursion leaves solve on the segment solver
+        # (align/wfa_seg.py) in device batches instead of one by one on
+        # the host (bit-identical results), and leaves it cannot settle
+        # re-enter the sweep recursion
+        self.on_gpu = jax.default_backend() == "gpu"
+        # installed lazily on a GPU, or injected by SegmentedEngine to
+        # share its solver
         self.seg_solver = None
         self.seg_min_batch = 4
         # opt-in (set by SegmentedEngine to its banded_pieces policy):
@@ -503,19 +455,9 @@ class JaxWfaEngine:
         # leaves the segment tiers cannot certify. Default False — this
         # engine's standalone contract is exactness.
         self.banded_leaves = False
-        # host-leaf fork pool width (set from -t by make_engine); child
-        # processes run pure-numpy wfa_align only — no device access
+        # host-leaf pool width (set from -t by make_engine); workers run
+        # pure-numpy wfa_align only — no device access
         self.threads = 1
-
-    def _pallas_sweeps(self):
-        if self._pallas is None:
-            from .wfa_pallas import PallasSweeps
-
-            interp = self.backend == "pallas-interpret"
-            self._pallas = PallasSweeps(
-                self.p, interpret=interp,
-                chunk_steps=64 if interp else 1024)
-        return self._pallas
 
     # -- single-problem API ---------------------------------------------
     def align(self, query: bytes, target: bytes, ends_free: EndsFree | None = None):
@@ -527,12 +469,10 @@ class JaxWfaEngine:
         return self.align_batch([(query, target, None)])[0]
 
     def _get_seg_solver(self):
-        if self.seg_solver is None and self.backend in (
-                "pallas", "pallas-interpret"):
-            from .wfa_pallas_seg import TieredSegmentSolver
+        if self.seg_solver is None and self.on_gpu:
+            from .wfa_seg import TieredSegmentSolver
 
-            self.seg_solver = TieredSegmentSolver(
-                self.p, interpret=self.backend == "pallas-interpret")
+            self.seg_solver = TieredSegmentSolver(self.p)
         return self.seg_solver
 
     # -- batched API ------------------------------------------------------
@@ -560,7 +500,6 @@ class JaxWfaEngine:
             else:
                 queue.append(_Sub(i, 0, len(q), 0, len(t), ()))
 
-        pallas_sel = self.backend in ("pallas", "pallas-interpret")
         synth: dict[int, tuple[int, tuple]] = {}
 
         def drain_queue(queue):
@@ -569,18 +508,13 @@ class JaxWfaEngine:
             while queue:
                 batch = queue[: self.batch_size]
                 queue = queue[self.batch_size :]
-                # problems outside the device envelope go straight to
-                # the host solver rather than dragging the batch down:
-                # (a) lengths >= 65535 (u16-packed anchors),
-                # (b) |m - n| beyond the diagonal span budget
+                # problems with |m - n| beyond the diagonal span budget
+                # go straight to the host solver rather than dragging the
+                # batch down
                 keep = []
                 for sub in batch:
                     m_len, n_len = sub.q1 - sub.q0, sub.t1 - sub.t0
-                    too_long = (pallas_sel
-                                and max(m_len, n_len) >= 65535)
-                    too_skew = 2 * (abs(m_len - n_len) + 16) + 3 \
-                        > self.MAX_SPAN
-                    if too_long or too_skew:
+                    if 2 * (abs(m_len - n_len) + 16) + 3 > self.MAX_SPAN:
                         q = seqs[sub.job_id][0][sub.q0:sub.q1].tobytes()
                         t = seqs[sub.job_id][1][sub.t0:sub.t1].tobytes()
                         _, ops = wfa_align(q, t, self.p)
@@ -670,7 +604,7 @@ class JaxWfaEngine:
         pending = deferred
         for rnd in range(2):
             unsolved = seg_pass(pending, seg)
-            if rnd == 1 or seg is None or not pallas_sel:
+            if rnd == 1 or seg is None or not self.on_gpu:
                 pending = unsolved
                 break
             # leaves the tiers could not settle re-enter the exact sweep
@@ -697,18 +631,13 @@ class JaxWfaEngine:
             if not requeue:
                 pending = keep
                 break
-            perf_mod = None
-            try:
-                from ..utils import perf as perf_mod
+            from ..utils import perf as perf_mod
 
-                perf_mod.add("align.resweep_jobs", len(requeue))
-                perf_mod.add("align.resweep_kept", len(keep))
-            except Exception:
-                pass
+            perf_mod.add("align.resweep_jobs", len(requeue))
+            perf_mod.add("align.resweep_kept", len(keep))
             deferred = []
             drain_queue(requeue)
-            if perf_mod is not None:
-                perf_mod.add("align.resweep_leaves", len(deferred))
+            perf_mod.add("align.resweep_leaves", len(deferred))
             pending = keep + deferred
 
         rest_entries = pending
@@ -836,99 +765,27 @@ class JaxWfaEngine:
             self.p.mismatch * (max(ms) + max(ns))
             + self.p.gap_opening1 + self.p.gap_opening2 + 64
         )
-        use_pallas = (
-            self.backend in ("pallas", "pallas-interpret")
-            and max(max(ms), max(ns)) < 65535  # guarded upstream; belt only
+        off = np.full((B, R, 5, K), NEG_I, dtype=np.int32)
+        anc_v = np.full((B, R, 5, K), -1, dtype=np.int32)
+        anc_h = np.full((B, R, 5, K), -1, dtype=np.int32)
+        open_a = np.full((B, R, 4, K), -1, dtype=np.int32)
+        for i in range(B):
+            off[i, 0, M_, K // 2] = lcps[i]
+            if not done0[i] and lcps[i] > mid[i]:
+                anc_v[i, 0, M_, K // 2] = mid[i]
+                anc_h[i, 0, M_, K // 2] = mid[i]
+        from ..utils import perf
+
+        perf.add("align.sweep_calls", 1)
+        f_score, f_pv, f_ph, finished = _sweep(
+            jnp.asarray(off), jnp.asarray(anc_v), jnp.asarray(anc_h),
+            jnp.asarray(open_a), jnp.asarray(query_w),
+            jnp.asarray(target_w),
+            jnp.asarray(qlen), jnp.asarray(tlen),
+            jnp.asarray(axis_is_query), jnp.asarray(mid),
+            jnp.asarray(done0), jnp.int32(max_s),
+            K=K, R=R, penalties=self.p,
         )
-        if use_pallas:
-            # the pallas kernel packs symbols to 4-bit codes; anything
-            # outside normalized DNA + sentinels goes to the XLA sweep
-            from .wfa_pallas import is_encodable
-
-            use_pallas = is_encodable(query) and is_encodable(target)
-        if use_pallas:
-            from .wfa_pallas import UNSET32 as _UNS
-
-            # margin-based span ladder (exactness envelope, ARCHITECTURE.md):
-            # the wavefront is banded to Kp diagonals. Band-edge contact
-            # (the kernel's clipped flag) triggers ESCALATION to the next
-            # ladder step unless the final score certifies the band: any
-            # path leaving the band pays >= 2*margin*min(e1,e2) in gap
-            # extensions for the out-and-back excursion, so a banded score
-            # strictly below that bound is globally optimal.
-            ladder = [v for v in (256, 512, 1024, 2048, 4096)
-                      if v <= self.MAX_SPAN]
-            need_p = 2 * (diff + max(128, max(max(ms), max(ns)) // 16)) + 3
-            ki = next((i for i, v in enumerate(ladder) if v >= need_p),
-                      len(ladder) - 1)
-            e_min = min(self.p.gap_extension1, self.p.gap_extension2)
-            adiff = np.abs(qlen - tlen)
-            f_score = np.zeros(B, np.int32)
-            f_pv = np.full(B, -1, np.int32)
-            f_ph = np.full(B, -1, np.int32)
-            finished = done0.copy()
-            remaining = ~done0
-            while True:
-                Kp = ladder[ki]
-                seed_off = np.full((B, Kp), NEG_I, np.int32)
-                seed_anc = np.full((B, Kp), _UNS, np.uint32)
-                for i in range(B):
-                    seed_off[i, Kp // 2] = lcps[i]
-                    if remaining[i] and lcps[i] > mid[i]:
-                        seed_anc[i, Kp // 2] = (
-                            (np.uint32(mid[i]) << 16) | np.uint32(mid[i]))
-                s, pv, ph, fin, clip = self._pallas_sweeps().sweep(
-                    query, target, qlen, tlen, axis_is_query, mid,
-                    seed_off, seed_anc, ~remaining, max_s, Kp)
-                solved = remaining & np.asarray(fin)
-                f_score[solved] = s[solved]
-                f_pv[solved] = pv[solved]
-                f_ph[solved] = ph[solved]
-                finished |= solved
-                margin = (Kp - 1) // 2 - adiff
-                # escaping the band = one I run + one D run of >= margin
-                # each (out and back), so 2*gap_cost(margin) bounds it
-                gc = np.minimum(
-                    self.p.gap_opening1 + margin * self.p.gap_extension1,
-                    self.p.gap_opening2 + margin * self.p.gap_extension2)
-                gc = np.where(margin > 0, gc, 0)
-                certified = s.astype(np.int64) < 2 * gc
-                retry = solved & np.asarray(clip) & ~certified
-                if not retry.any():
-                    break
-                if ki + 1 >= len(ladder):
-                    _wfa_log(
-                        f"[wfmash::align] warning: {int(retry.sum())} "
-                        f"problem(s) touched the K={Kp} band edge above the "
-                        "certificate bound at max span; result may be "
-                        "banded (fidelity ledger)")
-                    break
-                _wfa_log(
-                    f"[wfmash::align] span escalation: {int(retry.sum())} "
-                    f"problem(s) clipped at K={Kp}, re-running at "
-                    f"K={ladder[ki + 1]}")
-                finished &= ~retry
-                remaining = retry
-                ki += 1
-        else:
-            off = np.full((B, R, 5, K), NEG_I, dtype=np.int32)
-            anc_v = np.full((B, R, 5, K), -1, dtype=np.int32)
-            anc_h = np.full((B, R, 5, K), -1, dtype=np.int32)
-            open_a = np.full((B, R, 4, K), -1, dtype=np.int32)
-            for i in range(B):
-                off[i, 0, M_, K // 2] = lcps[i]
-                if not done0[i] and lcps[i] > mid[i]:
-                    anc_v[i, 0, M_, K // 2] = mid[i]
-                    anc_h[i, 0, M_, K // 2] = mid[i]
-            f_score, f_pv, f_ph, finished = _sweep(
-                jnp.asarray(off), jnp.asarray(anc_v), jnp.asarray(anc_h),
-                jnp.asarray(open_a), jnp.asarray(query_w),
-                jnp.asarray(target_w),
-                jnp.asarray(qlen), jnp.asarray(tlen),
-                jnp.asarray(axis_is_query), jnp.asarray(mid),
-                jnp.asarray(done0), jnp.int32(max_s),
-                K=K, R=R, penalties=self.p,
-            )
         finished = np.asarray(finished)
         if not finished.all():
             raise RuntimeError("WFA sweep failed to converge")

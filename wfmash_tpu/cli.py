@@ -24,7 +24,7 @@ I64_MAX = 0x7FFFFFFFFFFFFFFF
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="wfmash-tpu",
-        description="TPU-native whole-genome aligner with wfmash's capabilities",
+        description="JAX whole-genome aligner with wfmash's capabilities",
     )
     p.add_argument("target", help="target sequences (required)")
     p.add_argument("query", nargs="?", help="query sequences (default: self-map)")

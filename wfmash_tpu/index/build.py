@@ -17,7 +17,7 @@ Equivalent of skch::Sketch (reference: src/map/include/winSketch.hpp:63-457):
     each hash, OPEN points at wpos and CLOSE points at wpos_end, with
     adjacent same-hash intervals coalesced (winSketch.hpp:379-387).
 
-Instead of a hash map, the TPU-friendly layout is a sorted array join:
+Instead of a hash map, the accelerator-friendly layout is a sorted array join:
 ``unique_hashes`` (ascending) + CSR offsets into a flat, per-hash
 (seq_id, pos, side)-sorted endpoint array. Query lookups become
 vectorized ``searchsorted`` joins (device- and host-friendly).

@@ -310,7 +310,7 @@ class DeviceL1:
         uh_hi, uh_lo = _split_u64(uh.astype(np.uint64))
         ep = index.endpoints
         # device-resident index (uploaded once per target subset; the
-        # reference's posting table equivalent, SURVEY §2.4 TPU plan)
+        # reference's posting table equivalent, SURVEY §2.4)
         self.uh_hi = jnp.asarray(uh_hi)
         self.uh_lo = jnp.asarray(uh_lo)
         self.offs = jnp.asarray(index.endpoint_offsets.astype(np.int32))

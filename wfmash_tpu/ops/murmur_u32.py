@@ -1,4 +1,4 @@
-"""MurmurHash3_x64_128 low-64 on TPU via uint32-pair arithmetic.
+"""MurmurHash3_x64_128 low-64 on the device via uint32-pair arithmetic.
 
 Device-side counterpart of :func:`wfmash_tpu.sketch.murmur.murmur3_x64_128_low64`
 (bit-exact, cross-checked in tests). Operates on fixed key length L (static),

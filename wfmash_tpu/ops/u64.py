@@ -1,7 +1,7 @@
-"""Emulated unsigned 64-bit arithmetic on uint32 pairs for TPU.
+"""Emulated unsigned 64-bit arithmetic on uint32 pairs.
 
-TPUs have no native 64-bit integer unit; XLA emulates s64/u64 slowly. The
-hash pipeline (murmur3, canonical k-mer comparison, bottom-s selection)
+JAX runs without 64-bit types unless jax_enable_x64 is set process-wide,
+so the device code keeps to 32-bit lanes. The hash pipeline (murmur3, canonical k-mer comparison, bottom-s selection)
 needs exact uint64 semantics, so we represent a u64 as a pair of uint32
 arrays ``(hi, lo)`` and implement the few ops murmur3 needs:
 

@@ -13,7 +13,8 @@ Three implementations, all cross-checked in tests:
 * :func:`murmur3_x64_128_low64` — NumPy, vectorized over N same-length keys
   (host-side index building).
 * :mod:`wfmash_tpu.ops.murmur_u32` — JAX, 64-bit arithmetic emulated with
-  uint32 pairs (device-side query sketching; TPUs have no native int64).
+  uint32 pairs (device-side query sketching; JAX runs without 64-bit
+  types unless jax_enable_x64 is set).
 
 Only key lengths <= 32 bytes are required (k-mers; wfmash caps k well below
 that), but the NumPy path supports arbitrary equal-length keys.

@@ -1,32 +1,33 @@
-"""Persistent JAX compilation cache setup.
+"""Persistent JAX compilation cache.
 
-The WFA kernels compile per (shape-ladder, penalty) combination; on a
-fresh process those compiles dominate small-run wall time (30-120 s
-each on TPU). Enabling JAX's persistent compilation cache makes repeat
-runs start hot. Opt out with WFMASH_TPU_NO_JAX_CACHE=1 or point the
-directory elsewhere with WFMASH_TPU_JAX_CACHE_DIR.
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets nothing. Otherwise the cache goes to ``.jax_cache`` at the
+root of the checkout: a fixed path, so a later run of the same checkout
+finds what an earlier one compiled.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
+
+CHECKOUT_CACHE = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 _done = False
 
 
+def cache_dir() -> str:
+    """The directory compiled programs are cached in."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(CHECKOUT_CACHE)
+
+
 def enable() -> None:
     global _done
-    if _done or os.environ.get("WFMASH_TPU_NO_JAX_CACHE"):
+    if _done:
         return
     _done = True
-    cache_dir = os.environ.get(
-        "WFMASH_TPU_JAX_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "wfmash_tpu_jax"))
-    try:
-        import jax
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    import jax
 
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    jax.config.update("jax_compilation_cache_dir", str(CHECKOUT_CACHE))
